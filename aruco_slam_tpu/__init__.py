@@ -1,4 +1,4 @@
-"""aruco_slam_tpu — a TPU-native marker-SLAM engine (JAX/XLA/Pallas).
+"""aruco_slam_tpu — an accelerator marker-SLAM engine in JAX/XLA.
 
 A from-scratch re-design of the capabilities of the reference
 OpenCV/GTSAM pipeline (supersimple33/aruco-slam):
@@ -6,7 +6,8 @@ OpenCV/GTSAM pipeline (supersimple33/aruco-slam):
   detect ArUco markers  ->  IPPE/PnP marker poses  ->  filter/smooth
   ->  trajectory + landmark map outputs
 
-with an idiomatic TPU architecture instead of a port:
+with an idiomatic batched, statically-shaped accelerator architecture
+instead of a port (runs on NVIDIA GPUs; the CPU backend serves tests):
 
 * ``core``     — quaternion / SO(3) / SE(3) / pinhole-camera math, pure JAX.
 * ``ops``      — batched compute kernels: homography, IPPE-square PnP,

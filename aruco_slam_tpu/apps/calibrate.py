@@ -1,6 +1,6 @@
 """Camera calibration CLI from marker-board images.
 
-TPU-native counterpart of the reference's calibration tool
+On-device counterpart of the reference's calibration tool
 (reference calibration/charuco_calibration.py): detect board markers
 in every view with the image-domain detector, then jointly optimize
 intrinsics + per-view poses, and save the reference-compatible
@@ -63,6 +63,8 @@ def main(argv=None) -> None:
     # offline tool on tiny problems: run the LM in f64 (the reference's
     # cv2.calibrateCameraCharuco is f64 too)
     jax.config.update("jax_enable_x64", True)
+    from aruco_slam_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     path = Path(args.images)
     if path.suffix == ".npz":

@@ -2,7 +2,7 @@
 path (bounded-memory windowed GN + Schur pose marginalization).
 
 This is the one backend whose driver loop is per-frame host Python
-(apps/run_slam.py run_factorgraph — the TPU-native counterpart of the
+(apps/run_slam.py run_factorgraph — the on-device counterpart of the
 reference's per-frame ISAM2 update, reference
 filters/factor_graph.py:149-155), so its throughput can regress
 silently without a pinned number: bench.py and bench/large_map.py
@@ -10,7 +10,7 @@ cover only the MEKF paths. This bench drives the REAL product
 function (run_slam.run_factorgraph) at the app-default 128-pose
 budget with marginalization, and reports fps + ATE as one JSON line.
 
-    python -m aruco_slam_tpu.bench.factorgraph            # real TPU
+    python -m aruco_slam_tpu.bench.factorgraph            # GPU
     python -m aruco_slam_tpu.bench.factorgraph --platform cpu \
         --frames 80 --pose-budget 48                      # dev box
 """
@@ -32,17 +32,18 @@ def main(argv=None) -> None:
     p.add_argument("--window", type=int, default=8)
     p.add_argument("--platform", default=None)
     args = p.parse_args(argv)
-    if args.platform:
-        import jax
-        jax.config.update("jax_platforms", args.platform)
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tpu")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    if args.platform:
+        jax.config.update("jax_platforms", args.platform)
     import jax.numpy as jnp
+
+    from aruco_slam_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from aruco_slam_tpu.apps.run_slam import run_factorgraph
     from aruco_slam_tpu.bench import synthetic
     from aruco_slam_tpu.bench.ate import ate_rmse
+    from aruco_slam_tpu.bench.pipeline import device_fields
     from aruco_slam_tpu.config import SlamAppConfig
     from aruco_slam_tpu.core import camera as cam_mod
 
@@ -81,6 +82,7 @@ def main(argv=None) -> None:
         "ate_m": round(float(ate), 4),
         "n_landmarks": int(np.asarray(active).sum()),
         "frames": args.frames,
+        **device_fields(),
     }))
 
 

@@ -3,16 +3,16 @@
 "Multi-sequence throughput run: batched parallel SLAM over many videos
 + 500-marker synthetic map": a 512-marker wall surveyed by a raster
 sweep, filtered by a 512-capacity constant-velocity MEKF (error-state
-dim 9 + 512*3 = 1545, so the per-frame covariance update is a real
-MXU workload), and S independent sequences vmapped/sharded over the
-chip(s) at once.
+dim 9 + 512*3 = 1545, so the per-frame covariance update is real
+matmul work), and S independent sequences vmapped over the device at
+once.
 
 The reference cannot represent this run at all: its EKF grows a dense
 numpy state per landmark in Python (reference
 extended_kalman_filter.py:239-290) and processes one sequence,
 one frame, one marker at a time (reference main/run_slam.py:111-141).
 
-    python -m aruco_slam_tpu.bench.large_map            # real TPU
+    python -m aruco_slam_tpu.bench.large_map            # GPU
     python -m aruco_slam_tpu.bench.large_map --platform cpu \
         --markers 96 --frames 64 --batch 2              # dev box
 
@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import numpy as np
 
@@ -39,26 +38,24 @@ def main(argv=None) -> None:
                    choices=["highest", "high", "mixed"],
                    help="update-chain matmul precision (filters/mekf "
                         "matmul_precision). The serving default is "
-                        "'mixed': bf16 bulk covariance products with "
-                        "the gain chain pinned f32 — measured ATE "
-                        "0.073 vs 0.067 m at 'highest' on this bench, "
-                        "+14%% throughput")
+                        "'mixed': default-precision bulk covariance "
+                        "products with the gain chain pinned to f32; "
+                        "the row reports its ATE")
     p.add_argument("--cov-dtype", default="f32",
                    choices=["f32", "bf16"],
                    help="covariance STORAGE dtype (MekfConfig."
-                        "cov_dtype): bf16 halves the bandwidth the "
-                        "dim-1545 step is bound on (measured 559 -> "
-                        "810 fps batch 8) at an ATE cost this bench "
-                        "reports honestly (0.127 vs 0.073 m)")
+                        "cov_dtype): bf16 halves the bytes the "
+                        "dim-1545 step moves, at an ATE cost the row "
+                        "reports")
     p.add_argument("--platform", default=None)
     args = p.parse_args(argv)
-    if args.platform:
-        import jax
-        jax.config.update("jax_platforms", args.platform)
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tpu")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    if args.platform:
+        jax.config.update("jax_platforms", args.platform)
     import jax.numpy as jnp
+
+    from aruco_slam_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from aruco_slam_tpu.bench import synthetic
     from aruco_slam_tpu.bench.ate import ate_rmse
@@ -88,7 +85,7 @@ def main(argv=None) -> None:
     visible = mask.sum(1)
 
     fcfg = MekfConfig(capacity=args.markers, max_obs=args.max_obs,
-                      pallas_update=False, s_solver="ns",
+                      s_solver="ns",
                       pixel_sigma=0.3, gate_distance=1.5,
                       motion_model="cv", vel_decay=0.99,
                       matmul_precision=args.precision,
@@ -100,8 +97,6 @@ def main(argv=None) -> None:
     from aruco_slam_tpu.bench.pipeline import make_pipeline
     pipeline = make_pipeline(cam, marker_size, fcfg, chunk=16)
 
-    single = jax.jit(pipeline)
-
     corners_d = jnp.asarray(corners, jnp.float32)
     mask_d = jnp.asarray(mask)
     rng = np.random.default_rng(7)
@@ -110,20 +105,17 @@ def main(argv=None) -> None:
         jnp.float32)
     mask_b = jnp.broadcast_to(mask_d, (args.batch,) + mask.shape)
 
-    _, est = jax.block_until_ready(single(state0, corners_d, mask_d))
-    ate = ate_rmse(np.asarray(est[:, :3]), traj.cam_t)
-
     from aruco_slam_tpu.bench.pipeline import (
-        flops_metrics, flops_of, time_on_device)
-    dt = time_on_device(pipeline, state0, corners_d, mask_d,
-                        reps=args.reps)
-    single_fps = args.frames / dt
+        compile_and_time, device_fields, flops_metrics)
+    single = compile_and_time(lambda c, m: pipeline(state0, c, m)[1],
+                              (corners_d, mask_d), reps=args.reps)
+    ate = ate_rmse(np.asarray(single.out[:, :3]), traj.cam_t)
+    single_fps = args.frames / single.run_s
     batched = jax.vmap(pipeline, in_axes=(None, 0, 0))
-    dt = time_on_device(batched, state0, corners_b, mask_b,
-                        reps=max(1, args.reps - 1))
-    fps = args.batch * args.frames / dt
-    flop_row = flops_metrics(
-        flops_of(batched, state0, corners_b, mask_b), dt)
+    bat = compile_and_time(lambda c, m: batched(state0, c, m)[1],
+                           (corners_b, mask_b), reps=args.reps)
+    fps = args.batch * args.frames / bat.run_s
+    flop_row = flops_metrics(bat.flops, bat.run_s)
 
     # offline smoothing at the same scale (north-star config 3): full
     # batch LM with Schur-eliminated landmarks over every pose/factor
@@ -142,18 +134,13 @@ def main(argv=None) -> None:
     for i in range(args.frames):
         gstate = add_frame(gcfg, gstate, jnp.asarray(t_cl_h[i]),
                            jnp.asarray(mask_h[i]))
-    gout, _ = batch_optimize(gcfg, gstate, iters=40)  # compile
-    jax.block_until_ready(gout.pose_t)
-    t0 = time.perf_counter()
-    gout, _ = batch_optimize(gcfg, gstate, iters=40)
-    jax.block_until_ready(gout.pose_t)
-    ba_s = time.perf_counter() - t0
-    ba_ate = ate_rmse(np.asarray(gout.pose_t)[:args.frames], traj.cam_t)
-    # BA MFU (VERDICT r4 #7): the Schur system is real GEMM content
-    ba_flops = flops_of(lambda s: batch_optimize(gcfg, s, iters=40),
-                        gstate)
+    ba = compile_and_time(
+        lambda s: batch_optimize(gcfg, s, iters=40)[0].pose_t,
+        (gstate,), reps=1)
+    ba_ate = ate_rmse(np.asarray(ba.out)[:args.frames], traj.cam_t)
+    # BA achieved FLOP/s: the Schur system is real GEMM content
     ba_flop_row = {f"ba_{k}": v for k, v in
-                   flops_metrics(ba_flops, ba_s).items()}
+                   flops_metrics(ba.flops, ba.run_s).items()}
 
     print(json.dumps({
         "metric": "large_map_fps_per_chip",
@@ -164,10 +151,17 @@ def main(argv=None) -> None:
         "single_stream_fps": round(single_fps, 1),
         "ate_m": round(float(ate), 4),
         "offline_ba_ate_m": round(float(ba_ate), 4),
-        "offline_ba_s": round(ba_s, 2),
+        "offline_ba_s": round(ba.run_s, 2),
+        "compile_s": {"single": round(single.compile_s, 2),
+                      "batched": round(bat.compile_s, 2),
+                      "ba": round(ba.compile_s, 2)},
+        "temp_mib": {k: round(r.memory.temp_size_in_bytes / 2**20, 1)
+                     for k, r in (("single", single), ("batched", bat),
+                                  ("ba", ba))},
         "n_factors": nfac,
         "mean_visible": round(float(visible.mean()), 1),
         "state_dim": fcfg.err_dim,
+        **device_fields(),
         **flop_row,
         **ba_flop_row,
     }))

@@ -64,8 +64,8 @@ def _collective_microbench(mesh, axis, tcap, iters, reps, dtype):
     x = jnp.ones((1,), dtype)
     jax.block_until_ready(run(x))
     t0 = time.perf_counter()
-    for r in range(reps):
-        jax.block_until_ready(run(x + r))
+    for _ in range(reps):
+        jax.block_until_ready(run(x))
     return (time.perf_counter() - t0) / reps
 
 
@@ -148,8 +148,8 @@ def _build_problem(frames, markers):
 def run_worker(frames, markers, iters, reps, local_devices):
     """One process of a multi-process run. The SLAM_* env vars carry
     the coordinator/rank (parallel/dist.initialize reads them); this
-    is exactly the one-process-per-host launch shape of a TPU pod —
-    only the transport (Gloo here, ICI/DCN there) differs."""
+    is exactly the one-process-per-host cluster launch shape — only
+    the transport (Gloo here, NCCL between GPU hosts) differs."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     from aruco_slam_tpu.parallel import dist
@@ -301,6 +301,9 @@ def run_ingest(nproc, frames, local_devices, port=29781):
         procs = []
         for pid in range(n):
             env = dict(env_base)
+            # workers run the CPU backend by design (virtual devices,
+            # one pinned core each): hide every card from them
+            env["CUDA_VISIBLE_DEVICES"] = ""
             if n > 1:
                 env.update(SLAM_COORDINATOR=f"127.0.0.1:{port+portoff}",
                            SLAM_NUM_PROCESSES=str(n),
@@ -342,6 +345,7 @@ def run_multiprocess(nproc, frames, markers, iters, reps,
     for pid in range(nproc):
         env = {k: v for k, v in os.environ.items()
                if k != "XLA_FLAGS"}
+        env["CUDA_VISIBLE_DEVICES"] = ""  # CPU-backend workers
         env.update(SLAM_COORDINATOR=f"127.0.0.1:{port}",
                    SLAM_NUM_PROCESSES=str(nproc),
                    SLAM_PROCESS_ID=str(pid))
@@ -398,9 +402,11 @@ def main(argv=None) -> None:
         run_multiprocess(args.processes, args.frames, args.markers,
                          args.iters, args.reps, args.local_devices)
         return
+    import jax
     if args.platform:
-        import jax
         jax.config.update("jax_platforms", args.platform)
+    from aruco_slam_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     if args.fleet:
         n_data, n_kf = (int(v) for v in args.fleet.split("x"))
         run_fleet(n_data, n_kf, args.frames, args.markers,

@@ -115,7 +115,7 @@ class SlamAppConfig:
     # <1 bounds the blind dead-reckoning excursion (filters/mekf.py
     # vel_decay); 0.99 costs nothing on tracked runs
     mekf_vel_decay: float = 0.99
-    # matmul precision of the update chain on TPU (filters/mekf.py
+    # matmul precision of the update chain on the GPU (filters/mekf.py
     # matmul_precision): "highest" (f32, default) | "mixed" | "high"
     mekf_precision: str = "highest"
     # corner noise (px) driving the depth-scaled measurement whitening

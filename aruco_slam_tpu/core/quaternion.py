@@ -2,7 +2,7 @@
 
 All functions are pure JAX, operate on the trailing axis of size 4, and
 broadcast over arbitrary leading batch dimensions, so they vmap/jit
-cleanly and fuse into surrounding TPU compute.
+cleanly and fuse into surrounding device compute.
 
 The scalar-first convention matches the reference's state layout
 (reference filters/base_filter.py:25-27: ``qw, qx, qy, qz``).  The

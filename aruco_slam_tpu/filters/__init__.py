@@ -1,4 +1,4 @@
-"""Estimation backends (TPU-native, fully jitted).
+"""Estimation backends (on-device, fully jitted).
 
 Replaces the reference's L3 layer (filters/extended_kalman_filter.py,
 filters/ekf_with_rotations.py) with a single fused MEKF engine:

@@ -1,6 +1,6 @@
 """Fused multiplicative-error-state Kalman filter (MEKF) for marker SLAM.
 
-TPU-native re-design of the reference's two EKF backends
+Accelerator re-design of the reference's two EKF backends
 (reference filters/extended_kalman_filter.py — point landmarks,
 reference filters/ekf_with_rotations.py — full-pose landmarks):
 
@@ -15,8 +15,9 @@ reference filters/ekf_with_rotations.py — full-pose landmarks):
   algebra back-to-back on device.
 * The innovation solve is a dense Cholesky (`cho_factor/cho_solve`)
   instead of scipy SuperLU spsolve (reference
-  extended_kalman_filter.py:129): at these block sizes dense
-  MXU-friendly linear algebra beats any sparse path on TPU.
+  extended_kalman_filter.py:129): at these block sizes dense,
+  matmul-shaped linear algebra beats any sparse path on an
+  accelerator.
 * Measurement Jacobians come from `jax.jacfwd` of the measurement
   function at trace time — the role the reference fills with SymPy
   codegen + a dill cache (reference ekf_with_rotations.py:337-427) —
@@ -92,7 +93,7 @@ class MekfConfig(NamedTuple):
     consistent_init: bool = True
     dtype: jnp.dtype = jnp.float32
     # covariance STORAGE dtype (None = `dtype`). "bf16" halves the
-    # covariance HBM traffic — at survey scale (err_dim 1545, 9.5 MB
+    # covariance memory traffic — at survey scale (err_dim 1545, 9.5 MB
     # f32) the batched step is bandwidth-bound on ~a dozen
     # cov-sized passes per frame, so storage width is the throughput
     # knob. All small/critical algebra (the gain chain ph_t -> S ->
@@ -101,18 +102,11 @@ class MekfConfig(NamedTuple):
     # narrow. Joseph form + per-step symmetrization absorb the extra
     # rounding like a little process noise; validate ATE on your map
     # scale before serving with it (bench/large_map.py reports it).
-    # Only the XLA update path supports it (pallas_update=False).
     cov_dtype: jnp.dtype | None = None
-    # fused Pallas update kernel (filters/pallas_mekf.py); None = auto
-    # (on when running on TPU and joseph_form is set). NOTE: under
-    # vmap a pallas_call serializes its batch grid — for batched
-    # serving turn this off and use s_solver="ns", which vmaps into
-    # batched MXU GEMMs instead.
-    pallas_update: bool | None = None
     ns_iters: int = 20  # Newton–Schulz iterations for S⁻¹
-    # innovation solve in the non-pallas path: "cho" = dense Cholesky
-    # (exact, serial); "ns" = Newton–Schulz inverse (pure matmuls,
-    # batches perfectly under vmap)
+    # innovation solve: "cho" = dense Cholesky (exact, serial); "ns" =
+    # Newton–Schulz inverse (pure matmuls, batches perfectly under
+    # vmap — the batched-serving choice)
     s_solver: str = "cho"
     # constant-velocity motion model: predict the camera forward by an
     # exponential moving average of its recent per-frame displacement.
@@ -139,12 +133,14 @@ class MekfConfig(NamedTuple):
     # velocity). <1 bounds the dead-reckoning excursion when no
     # observations are accepted for a stretch — see the predict step.
     vel_decay: float = 1.0
-    # matmul precision for the update chain (see mekf_step): "highest"
-    # = true f32 (correct by default), "high" = bf16_3x (~1e-5 rel
-    # error), "mixed" = bf16 covariance products with the gain chain
-    # (ph_t/S/S⁻¹/K) pinned to f32 — the fast serving setting,
-    # "default" = single-pass bf16 everywhere (NOT safe: S goes
-    # indefinite and Cholesky NaNs on big maps).
+    # matmul precision for the update chain (see mekf_step). On an
+    # H100 (measured: max relative error of a 1024³ f32 product):
+    # "highest" = true f32 (1.5e-6; the default); "high" and
+    # "default" = TF32 tensor-core inputs (3.3e-4 — both names give
+    # the same); "mixed" = TF32 covariance products with the gain
+    # chain (ph_t/S/S⁻¹/K) pinned to f32. "default"/"high" put the
+    # gain chain in TF32 too, which is not safe: S can go indefinite
+    # and the Cholesky NaNs on big maps. On the CPU every name is f32.
     matmul_precision: str = "highest"
     # failure detection (SURVEY.md §5 — the reference has none): if an
     # update produces non-finite state, drop it and carry the predicted
@@ -421,9 +417,8 @@ def _augment_consistent(cfg: MekfConfig, state: MekfState, new, new_dims,
         p = state.cov
         cdt = p.dtype  # covariance storage dtype (cfg.cov_dtype)
         if n < 768:
-            # small-state: ONE dense G P Gᵀ keeps the MXU busy and
-            # beats the blocked form's many small ops (measured 79k
-            # vs 68k fps on the capacity-64 batched headline, N=201)
+            # small-state: ONE dense G P Gᵀ instead of the blocked
+            # form's many small ops
             g_mat = jnp.eye(n, dtype=dt) * keep[:, None]
             g_mat = g_mat.at[ce:, :ce].set(g_cam.reshape(c * le, ce))
             cov = (g_mat @ p.astype(dt) @ g_mat.T).astype(cdt)
@@ -476,15 +471,15 @@ def mekf_step(cfg: MekfConfig, state: MekfState,
     join this frame's update), then covariance inflation, then the
     Kalman update over all observed markers.
     """
-    # TPU matmuls default to bfloat16 passes; at bf16 the assembled
-    # innovation covariance S = HPHᵀ+R comes out INDEFINITE (~1e-2
-    # negative eigenvalues on unit scale — measured on a 96-landmark
-    # map), which NaNs the Cholesky solver and silently caps the
-    # Newton–Schulz gain accuracy (measured 2.5x worse ATE on the
-    # 512-marker survey). The whole update chain is small dense
-    # linalg where accuracy is the point, so trace it at full f32
-    # precision by default (cfg.matmul_precision relaxes it; "mixed"
-    # = bf16 bulk with an f32-pinned gain chain, see the update).
+    # An accelerator's default matmul precision rounds f32 inputs
+    # (TF32 on a GPU: ~1e-3 relative); the assembled innovation
+    # covariance S = HPHᵀ+R is a difference of large terms whose
+    # small eigenvalues do not survive that, and an indefinite S NaNs
+    # the Cholesky solver and caps the Newton–Schulz gain accuracy.
+    # The whole update chain is small dense linalg where accuracy is
+    # the point, so trace it at full f32 precision by default
+    # (cfg.matmul_precision relaxes it; "mixed" = default-precision
+    # bulk with an f32-pinned gain chain, see the update).
     ctx = ("default" if cfg.matmul_precision == "mixed"
            else cfg.matmul_precision)
     with jax.default_matmul_precision(ctx):
@@ -660,7 +655,7 @@ def _mekf_step_impl(cfg: MekfConfig, state: MekfState,
     else:
         # full block: H (C*md, N); camera columns from j_cam, landmark
         # columns block-diagonal, built with an einsum against the
-        # identity — a dense, MXU-friendly scatter.
+        # identity — a dense, matmul-shaped scatter.
         h_cam = (j_cam * w[:, :, None]).reshape(c * md, ce)
         eye_c = jnp.eye(c, dtype=dt)
         h_lm = jnp.einsum("jc,jml->jmcl", eye_c, j_lm * w[:, :, None])
@@ -670,64 +665,53 @@ def _mekf_step_impl(cfg: MekfConfig, state: MekfState,
         r_diag = jnp.where(
             jnp.repeat(mask, md), r_rows.reshape(-1), 1.0).astype(dt)
     cov_pred = cov  # kept for the divergence guard
-    on_tpu = jax.default_backend() == "tpu"
-    use_pallas = (on_tpu and cfg.joseph_form) \
-        if cfg.pallas_update is None else cfg.pallas_update
-    use_pallas = use_pallas and cdt == dt  # kernel is f32-only
-    if use_pallas and cfg.joseph_form:
-        # fused VMEM-resident kernel: gain + innovation + Joseph update
-        from aruco_slam_tpu.filters import pallas_mekf
-        innovation, new_cov = pallas_mekf.fused_update(
-            cov, h_mat, r_diag, resid, ns_iters=cfg.ns_iters,
-            interpret=not on_tpu)
+    # Under "mixed" precision the step traces at default-precision
+    # matmuls but the GAIN chain (ph_t -> S -> S⁻¹ -> K) is pinned to
+    # true f32: S must stay numerically PSD (see mekf_step), while the
+    # bulky rank-M covariance products below tolerate the rounding.
+    hp = (jax.lax.Precision.HIGHEST
+          if cfg.matmul_precision == "mixed" else None)
+    mm = functools.partial(jnp.matmul, precision=hp)
+    ph_t = mm(cov, h_mat.T)               # (N, M)
+    s = mm(h_mat, ph_t) + jnp.diag(r_diag)  # (M, M)
+    if cfg.s_solver == "ns":
+        # Newton–Schulz inverse: X_{k+1} = X_k (2I - S X_k). Pure
+        # matmuls, so under vmap this becomes batched GEMMs (a
+        # Cholesky would serialize). x0 = S/‖S‖₁² makes every
+        # eigenvalue of S·x0 lie in (0, 1], so the iteration converges
+        # quadratically once it leaves the small-eigenvalue regime.
+        # Robustness note: an eigendirection with |λ| ≪ ν has S·x0
+        # eigenvalue λ²/ν² ≈ 0, which after a bounded iteration count
+        # is still ≈ 0 — near-null directions of an f32-indefinite S
+        # are implicitly TRUNCATED (gain ~0) instead of exploding the
+        # way an unpivoted Cholesky does. Large maps (many landmarks
+        # all correlated through the 6-dof camera make S rank-6-
+        # dominated) rely on this.
+        m_dim = s.shape[0]
+        eye_m = jnp.eye(m_dim, dtype=dt)
+        norm1 = jnp.max(jnp.sum(jnp.abs(s), axis=0))
+        x0 = s / (norm1 * norm1)
+        s_inv = jax.lax.fori_loop(
+            0, cfg.ns_iters,
+            lambda _, x: mm(x, 2.0 * eye_m - mm(s, x)), x0)
+        gain = mm(ph_t, s_inv)            # K = P Hᵀ S⁻¹, (N, M)
     else:
-        # Under "mixed" precision the step traces at bf16 matmuls but
-        # the GAIN chain (ph_t -> S -> S⁻¹ -> K) is pinned to true
-        # f32: S must stay numerically PSD (see mekf_step), while the
-        # bulky rank-M covariance products below tolerate bf16.
-        hp = (jax.lax.Precision.HIGHEST
-              if cfg.matmul_precision == "mixed" else None)
-        mm = functools.partial(jnp.matmul, precision=hp)
-        ph_t = mm(cov, h_mat.T)               # (N, M)
-        s = mm(h_mat, ph_t) + jnp.diag(r_diag)  # (M, M)
-        if cfg.s_solver == "ns":
-            # Newton–Schulz inverse: X_{k+1} = X_k (2I - S X_k). Pure
-            # matmuls, so under vmap this becomes batched MXU GEMMs
-            # (a Cholesky would serialize). Same convergence argument
-            # as the pallas kernel (see filters/pallas_mekf.py).
-            # Robustness note: with x0 = S/ν², an eigendirection with
-            # |λ| ≪ ν has S·x0 eigenvalue λ²/ν² ≈ 0, which after a
-            # bounded iteration count is still ≈ 0 — near-null
-            # directions of an f32-indefinite S are implicitly
-            # TRUNCATED (gain ~0) instead of exploding the way an
-            # unpivoted Cholesky does. Large maps (many landmarks all
-            # correlated through the 6-dof camera make S rank-6-
-            # dominated) rely on this.
-            m_dim = s.shape[0]
-            eye_m = jnp.eye(m_dim, dtype=dt)
-            norm1 = jnp.max(jnp.sum(jnp.abs(s), axis=0))
-            x0 = s / (norm1 * norm1)
-            s_inv = jax.lax.fori_loop(
-                0, cfg.ns_iters,
-                lambda _, x: mm(x, 2.0 * eye_m - mm(s, x)), x0)
-            gain = mm(ph_t, s_inv)            # K = P Hᵀ S⁻¹, (N, M)
-        else:
-            # Equilibrated + jittered Cholesky: S is HPHᵀ (rank ≤ the
-            # camera dof for blocks coupled only through the camera)
-            # plus a small R diagonal, so trailing f32 pivots are tiny
-            # differences of large numbers and routinely go negative
-            # on big maps (NaN factor). Scale to unit diagonal, then
-            # add a relative jitter that bounds the pivot roundoff;
-            # at 1e-5 relative the gain perturbation is ~1e-5 — far
-            # below measurement noise.
-            d_inv = jax.lax.rsqrt(jnp.maximum(jnp.diag(s), 1e-30))
-            s_eq = s * d_inv[:, None] * d_inv[None, :]
-            s_eq = s_eq + 1e-5 * jnp.eye(s.shape[0], dtype=dt)
-            s_fact = cho_factor(s_eq, lower=True)
-            gain = cho_solve(s_fact, (ph_t * d_inv[None, :]).T).T \
-                * d_inv[None, :]
-        innovation = mm(gain, resid)          # (N,) — gain chain stays
-                                              # f32 under "mixed"
+        # Equilibrated + jittered Cholesky: S is HPHᵀ (rank ≤ the
+        # camera dof for blocks coupled only through the camera) plus
+        # a small R diagonal, so trailing f32 pivots are tiny
+        # differences of large numbers and routinely go negative on
+        # big maps (NaN factor). Scale to unit diagonal, then add a
+        # relative jitter that bounds the pivot roundoff; at 1e-5
+        # relative the gain perturbation is ~1e-5 — far below
+        # measurement noise.
+        d_inv = jax.lax.rsqrt(jnp.maximum(jnp.diag(s), 1e-30))
+        s_eq = s * d_inv[:, None] * d_inv[None, :]
+        s_eq = s_eq + 1e-5 * jnp.eye(s.shape[0], dtype=dt)
+        s_fact = cho_factor(s_eq, lower=True)
+        gain = cho_solve(s_fact, (ph_t * d_inv[None, :]).T).T \
+            * d_inv[None, :]
+    innovation = mm(gain, resid)          # (N,) — gain chain stays
+                                          # f32 under "mixed"
 
     if cfg.divergence_guard:
         # a non-finite innovation (e.g. NaN observations that slipped
@@ -746,26 +730,23 @@ def _mekf_step_impl(cfg: MekfConfig, state: MekfState,
             jax.vmap(_perturb)(lm[:, 3:7], lm_inn[:, 3:6]))
         lm = lm.at[:, 3:7].set(lm_q)
 
-    # covariance update (the fused kernel already did Joseph in VMEM)
-    if use_pallas and cfg.joseph_form:
-        cov = new_cov
+    # covariance update — rank-M expansion: (I−KH)P(I−KH)ᵀ + KRKᵀ
+    #   = P − K(HP) − (HP)ᵀKᵀ + K S Kᵀ   with S = HPHᵀ + R exact.
+    # Valid for ANY gain K (including the Newton–Schulz approximate
+    # one). Forming I−KH densely costs two N³ GEMMs per frame (N = 201
+    # at capacity 64); this form costs three rank-M products
+    # (M = max_obs·md ≈ 48) — ~3.7x fewer FLOPs — and P is symmetrized
+    # every step. The big (N, N) GEMM outputs store at the covariance
+    # dtype (the cast fuses into the GEMM epilogue; a no-op at the f32
+    # default).
+    a = (gain @ ph_t.T).astype(cdt)         # K (HP) : (N, N)
+    if cfg.joseph_form:
+        ksk = ((gain @ s) @ gain.T).astype(cdt)
+        cov = cov - a - a.T + ksk
     else:
-        # rank-M expansion: (I−KH)P(I−KH)ᵀ + KRKᵀ
-        #   = P − K(HP) − (HP)ᵀKᵀ + K S Kᵀ   with S = HPHᵀ + R exact.
-        # Valid for ANY gain K (including the Newton–Schulz
-        # approximate one). Forming I−KH densely costs two N³ GEMMs
-        # per frame (N = 201 at capacity 64); this form costs three
-        # rank-M products (M = max_obs·md ≈ 48) — ~3.7x fewer FLOPs —
-        # and P is symmetrized every step as before. The big (N, N)
-        # GEMM outputs store at the covariance dtype (the cast fuses
-        # into the GEMM epilogue; a no-op at the f32 default).
-        a = (gain @ ph_t.T).astype(cdt)         # K (HP) : (N, N)
-        if cfg.joseph_form:
-            ksk = ((gain @ s) @ gain.T).astype(cdt)
-            cov = cov - a - a.T + ksk
-        else:
-            cov = cov - a  # the reference's (I−KH)P (extended_kalman_filter.py:156)
-        cov = (0.5 * (cov + cov.T)).astype(cdt)
+        # the reference's (I−KH)P (extended_kalman_filter.py:156)
+        cov = cov - a
+    cov = (0.5 * (cov + cov.T)).astype(cdt)
 
     if cfg.divergence_guard:
         cov = jnp.where(jnp.isfinite(cov).all(), cov, cov_pred)
@@ -860,7 +841,7 @@ def innovation_gate(cfg: MekfConfig, state: MekfState,
                     max_distance_m: float = 1.0) -> FrameObservations:
     """Position-innovation gate for either landmark mode: reject
     observations whose camera-frame position prediction disagrees with
-    the measurement by more than ``max_distance_m`` (a TPU-native
+    the measurement by more than ``max_distance_m`` (a
     generalization of the reference's rotation-only gate to the
     point-landmark filter, which has no rotation state to gate on)."""
     pred = quat.rotate(quat.conjugate(state.cam_q)[None, :],

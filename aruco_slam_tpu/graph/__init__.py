@@ -3,7 +3,7 @@ bundle adjustment with dense Schur-complement elimination.
 
 Replaces the reference's GTSAM stack (reference filters/factor_graph.py:
 NonlinearFactorGraph + ISAM2 + LevenbergMarquardtOptimizer) with a
-TPU-shaped solver: fixed-capacity struct-of-arrays factor storage, all
+accelerator-shaped solver: fixed-capacity struct-of-arrays factor storage, all
 residual/Jacobian blocks batched via vmap + jacfwd, normal equations
 assembled as dense matmuls, landmark blocks eliminated by a dense Schur
 complement, and the reduced camera system solved by Cholesky. The

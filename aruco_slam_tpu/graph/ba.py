@@ -17,7 +17,7 @@ filters/factor_graph.py:92-300):
   the translation is informative; we use the honest 3-dim point
   factor r = R_iᵀ(l_j − t_i) − t_cl).
 
-TPU shape of the solve: all residual/Jacobian blocks are produced by
+Accelerator shape of the solve: all residual/Jacobian blocks are produced by
 ``vmap(jacfwd(...))`` over factor arrays, the normal equations are
 assembled with scatter-adds into dense blocks, landmarks are
 eliminated with a **dense** Schur complement
@@ -26,7 +26,7 @@ eliminated with a **dense** Schur complement
 
 and the reduced (6n × 6n) camera system is solved by Cholesky. With
 ≤ a few thousand poses and ≤ a few hundred markers the dense forms are
-small by TPU standards — a handful of MXU matmuls — and avoid every
+small by accelerator standards — a handful of dense matmuls — and avoid every
 sparse/pointer structure GTSAM's Bayes tree needs on CPU.
 
 Fixed capacity everywhere: `max_poses`, `max_landmarks`, `max_factors`
@@ -763,11 +763,12 @@ def _optimize(cfg: GraphConfig, state: GraphState, iters: int,
     of the reference's gtsam LevenbergMarquardtOptimizer,
     reference factor_graph.py:327-345).
 
-    Traced at full f32 matmul precision: TPU matmuls default to
-    single-pass bf16, and the normal equations / Schur complement are
-    exactly the kind of small accuracy-critical linalg that turns a
-    quadratically-converging GN step into a stalled one (same failure
-    measured in the MEKF, filters/mekf.py mekf_step).
+    Traced at full f32 matmul precision: at default precision an
+    accelerator may run f32 matmuls with reduced-precision inputs
+    (TF32 tensor cores on a GPU), and the normal equations / Schur
+    complement are exactly the kind of small accuracy-critical linalg
+    that turns a quadratically-converging GN step into a stalled one
+    (same failure as in the MEKF, filters/mekf.py mekf_step).
     """
     with jax.default_matmul_precision("highest"):
         return _optimize_impl(cfg, state, iters, free_from)

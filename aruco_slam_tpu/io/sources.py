@@ -68,7 +68,9 @@ def is_video(path) -> bool:
 class VideoSource:
     """Grayscale frames from a video file (host-side decode).
 
-    Prefers imageio (bundled); falls back to cv2 when present.
+    Prefers imageio (with its pyav plugin); falls back to cv2. Both
+    are optional installs (the ``video`` extra); with neither, opening
+    a video raises a RuntimeError that says so.
     ``size=(w, h)`` resizes every frame (the reference hard-codes a
     1920x1080 resize, reference main/run_slam.py:43,116 — only correct
     when the calibration is 1080p); default None keeps the native
@@ -84,8 +86,15 @@ class VideoSource:
             self._mode = "imageio"
             meta = iio.improps(self.path, plugin="pyav")
             self.num_frames = int(meta.shape[0]) if meta.shape else 0
-        except Exception:
-            import cv2
+        except Exception as iio_err:  # missing package/plugin, codec
+            try:
+                import cv2
+            except ImportError:
+                raise RuntimeError(
+                    f"cannot decode {self.path}: video input needs "
+                    "imageio with the pyav plugin or OpenCV (pip "
+                    "install 'aruco-slam-tpu[video]'); imageio said: "
+                    f"{iio_err}") from None
             self._cv2 = cv2
             self._mode = "cv2"
             cap = cv2.VideoCapture(self.path)

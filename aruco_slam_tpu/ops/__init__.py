@@ -3,6 +3,7 @@ dictionaries, image-domain marker detection.
 
 Replaces the reference's OpenCV C++ calls (cv2.solvePnP IPPE_SQUARE at
 reference filters/base_filter.py:156-164, cv2.aruco detection at
-:194) with dense, batch-first JAX/Pallas implementations designed for
-the TPU's MXU/VPU rather than per-marker host loops.
+:194) with dense, batch-first JAX implementations designed for an
+accelerator's wide vector and matmul units rather than per-marker host
+loops.
 """

@@ -4,7 +4,7 @@ The capability of the reference's ChArUco calibration tool
 (reference calibration/charuco_calibration.py:33-77 →
 cv2.aruco.calibrateCameraCharuco): estimate intrinsics
 (fx, fy, cx, cy) + 5-term distortion from multiple views of a known
-planar board. TPU-shaped: one Levenberg-Marquardt problem over
+planar board. Accelerator-shaped: one Levenberg-Marquardt problem over
 [intrinsics(9), per-view poses(6V)] with all views' reprojection
 residuals evaluated as one batched computation and the (small, dense)
 normal equations solved directly.

@@ -1,6 +1,6 @@
 """Image-domain ArUco detection as a dense, statically-shaped pipeline.
 
-TPU-native replacement for cv2.aruco.ArucoDetector.detectMarkers
+Accelerator replacement for cv2.aruco.ArucoDetector.detectMarkers
 (reference filters/base_filter.py:74-90, 194). OpenCV's detector is
 irregular CPU code — contour tracing, polygon approximation, per-
 candidate hash lookups. XLA needs static shapes and dense data flow,
@@ -23,7 +23,7 @@ so every stage here is reformulated dense (SURVEY.md §7 "hard parts"):
     batched over all corners.
  6. decode — homography-sample the (n+2)² cell grid, threshold,
     border check, and match payloads against ALL dictionary rotations
-    with ONE ±1 matmul on the MXU (ops/dictionary.py's table).
+    with ONE ±1 matmul (ops/dictionary.py's table).
  7. slot outputs — deduplicated by id into fixed-capacity arrays
     (corners (C,4,2) + mask), feeding the batched PnP directly.
 
@@ -137,8 +137,6 @@ class DetectorConfig(NamedTuple):
                                   # the full width catches on the
                                   # cluttered-background suite) — use
                                   # on clean/controlled scenes only
-    pallas: bool | None = None    # VMEM-resident flood kernel; None =
-                                  # auto (on when running on TPU)
 
 
 class Detections(NamedTuple):
@@ -183,8 +181,7 @@ def _box_mean_multi(img: jnp.ndarray, wins: tuple[int, ...]
 
 
 def _connected_components(fg: jnp.ndarray, iters: int,
-                          scan_rounds: int = 3,
-                          pallas_mode: str = "off") -> jnp.ndarray:
+                          scan_rounds: int = 3) -> jnp.ndarray:
     """Connected-component labels by min-label flooding.
 
     fg: (h, w) bool. Returns int32 labels; background = h*w (BIG).
@@ -192,8 +189,8 @@ def _connected_components(fg: jnp.ndarray, iters: int,
     Alternates two gather-free propagation mechanisms:
 
     * 3x3 min stencils (`iters` rounds total, split across the scan
-      rounds) — pure VPU work crossing diagonal joints and staircase
-      edges one pixel per round;
+      rounds) — pure elementwise work crossing diagonal joints and
+      staircase edges one pixel per round;
     * segmented row/column min-scans (`scan_rounds` alternations) —
       `associative_scan` with a reset at every background pixel, which
       propagates a label across an ENTIRE contiguous dark run in one
@@ -201,22 +198,13 @@ def _connected_components(fg: jnp.ndarray, iters: int,
       so reach along it is unbounded: full-frame close-up markers
       label in a few rounds with no per-pixel iteration count.
 
-    Nothing here gathers. The previous design extended reach with a
-    pointer-jump round (label = label[label]) — one 130k-element
-    gather per frame that measured 2.6 ms at 1080p on TPU, 40% of the
-    whole detector, vs ~2 µs for a stencil round.
+    Nothing here gathers: reach comes from the scans instead of a
+    pointer-jump round (label = label[label]), a data-dependent
+    gather over the whole label image per round.
 
-    pallas_mode: "off" = plain XLA stencil loop; "tpu"/"interpret" =
-    ops/pallas_cc.flood_labels for the opening stencil block, which
-    keeps the label image resident in VMEM across rounds. The scans
-    stay in XLA either way.
-
-    The outermost 1-px ring is treated as background in every mode:
-    it is what lets the Pallas kernel run maskless (roll wraps land on
-    background — see pallas_cc._flood_kernel) and it keeps the XLA and
-    Pallas paths bit-identical. Markers lose at most one
-    labeling-resolution pixel at the frame edge, within the slack the
-    subpixel refinement already absorbs.
+    The outermost 1-px ring is treated as background. Markers lose at
+    most one labeling-resolution pixel at the frame edge, within the
+    slack the subpixel refinement already absorbs.
     """
     h, w = fg.shape
     big = h * w
@@ -229,7 +217,7 @@ def _connected_components(fg: jnp.ndarray, iters: int,
     def prop(_, labels):
         # separable 3x3 box min (vertical then horizontal pass) — the
         # same 8-neighbor+self min as a 9-plane stack but 6 planes of
-        # HBM traffic instead of 10, and no pad copy
+        # memory traffic instead of 10, and no pad copy
         p = jnp.pad(labels, ((1, 1), (0, 0)), constant_values=big)
         v = jnp.minimum(labels, jnp.minimum(p[:-2, :], p[2:, :]))
         q = jnp.pad(v, ((0, 0), (1, 1)), constant_values=big)
@@ -258,9 +246,7 @@ def _connected_components(fg: jnp.ndarray, iters: int,
     # the forward-updated labels) rather than from a shared input:
     # per-round reach is strictly >= the parallel-directions form (a
     # forward-found min propagates backward in the same round), and it
-    # halves the peak value liveness — which is what lets the fused
-    # Pallas kernel (pallas_cc._flood_scan_kernel, kept bit-identical
-    # to this path) fit the 16 MB scoped-VMEM budget at 540x960.
+    # halves the peak value liveness.
     def seg_scan_dir(labels, axis, reverse):
         run_bits = int(fg.shape[axis]).bit_length()
         if label_bits + run_bits > 31:
@@ -279,24 +265,9 @@ def _connected_components(fg: jnp.ndarray, iters: int,
                             axis, True)
 
     per = max(1, iters // (scan_rounds + 1)) if scan_rounds else iters
-    if pallas_mode != "off":
-        from aruco_slam_tpu.ops import pallas_cc
-        if pallas_cc.flood_scan_fits(h, w):
-            # the fused kernel runs the WHOLE schedule (stencils AND
-            # segmented scans) in VMEM — the scans are the XLA path's
-            # cost center (~0.8 ms/round at 540x960: every cummax /
-            # cumsum is its own log-depth multi-pass HBM kernel; in
-            # VMEM they are log2(n) masked rolls, HBM touched twice
-            # total). Bit-identical to the XLA path below.
-            return pallas_cc.flood_scan_labels(
-                fg, iters, scan_rounds,
-                interpret=(pallas_mode == "interpret"))
-        labels = pallas_cc.flood_labels(
-            fg, per, interpret=(pallas_mode == "interpret"))
-    else:
-        lin = jnp.arange(big, dtype=jnp.int32).reshape(h, w)
-        labels = jnp.where(fg, lin, big)
-        labels = jax.lax.fori_loop(0, per, prop, labels)
+    lin = jnp.arange(big, dtype=jnp.int32).reshape(h, w)
+    labels = jnp.where(fg, lin, big)
+    labels = jax.lax.fori_loop(0, per, prop, labels)
     for _ in range(scan_rounds):
         labels = seg_scan(labels, 1)  # along rows
         labels = seg_scan(labels, 0)  # along columns
@@ -314,8 +285,8 @@ def _quad_corners_compact(xf: jnp.ndarray, yf: jnp.ndarray,
     farthest-from-that = the diagonal, extremes either side of it),
     but on the component's own pixels (N = max_area) instead of a
     (K, h, w) mask stack — the mask stack plus its masked-argmax score
-    planes cost ~50 MB of HBM traffic per pass at 1080p; the compact
-    lists hold the whole stage under 1 MB."""
+    planes cost ~50 MB of memory traffic per pass at 1080p; the
+    compact lists hold the whole stage under 1 MB."""
     m = valid.astype(jnp.float32)
     cnt = jnp.maximum(m.sum(-1), 1.0)
     cx = (m * xf).sum(-1) / cnt
@@ -348,20 +319,11 @@ def _quad_corners_compact(xf: jnp.ndarray, yf: jnp.ndarray,
     return jnp.take_along_axis(quad, order[..., None], axis=1)
 
 
-def _pallas_mode(cfg: DetectorConfig) -> str:
-    """Resolve cfg.pallas to a kernel mode: "off" | "tpu" |
-    "interpret" (CPU testing)."""
-    on_tpu = jax.default_backend() == "tpu"
-    use = on_tpu if cfg.pallas is None else cfg.pallas
-    return "off" if not use else ("tpu" if on_tpu else "interpret")
-
-
 def _gather_patches(img: jnp.ndarray, corners: jnp.ndarray, rad: int):
     """One (N, P, P) f32 patch gather centered at the rounded corners.
     vmapped dynamic_slice lowers to a gather of contiguous (P, P)
-    windows (row-sized reads) instead of P² single-element lookups —
-    ~4x faster than advanced indexing on TPU at detector counts. The
-    gather reads the image in its NARROWEST dtype (uint8 frames stay
+    windows (row-sized reads) instead of P² single-element lookups.
+    The gather reads the image in its NARROWEST dtype (uint8 frames stay
     uint8 — 4x fewer scattered bytes than gathering the f32 copy;
     conversion afterwards on the small patch stack is exact).
     Returns (patches, cx0, cy0)."""
@@ -377,8 +339,7 @@ def _gather_patches(img: jnp.ndarray, corners: jnp.ndarray, rad: int):
 
 
 def _subpix_refine(img: jnp.ndarray, corners: jnp.ndarray,
-                   schedule: tuple[tuple[int, int], ...],
-                   pallas_mode: str = "off") -> jnp.ndarray:
+                   schedule: tuple[tuple[int, int], ...]) -> jnp.ndarray:
     """Gradient structure-tensor subpixel refinement (cornerSubPix
     math), batched over corners (N, 2) on the full-res image.
 
@@ -391,9 +352,8 @@ def _subpix_refine(img: jnp.ndarray, corners: jnp.ndarray,
     cumulative drift across all stages), and every iteration then runs
     as pure elementwise math on the (N, P, P) patch stack — recentering
     via a window mask instead of re-slicing. Per-iteration dynamic
-    slices cost a serialized gather per corner per round on TPU; this
-    form does one gather for the whole coarse-to-fine refinement
-    (~10x cheaper at detector candidate counts)."""
+    slices would cost a gather per corner per round; this form does
+    one gather for the whole coarse-to-fine refinement."""
     # patch radius: every stage's window (plus 1px gradient border)
     # must stay inside the patch after all preceding stages' drift
     # (each stage may move the estimate by up to its own half-window)
@@ -408,19 +368,6 @@ def _subpix_refine(img: jnp.ndarray, corners: jnp.ndarray,
         sigma2 = (half / 1.5) ** 2
         drift = min(drift + half, rad - half - 1)
         sched.append((half, iters, sigma2, drift))
-
-    if pallas_mode != "off":
-        # fused VMEM-resident gather + iterations: the XLA patch
-        # gather reads ~p rows per corner from HBM at (8, 128)-tile
-        # granularity (~0.4 ms/frame at robust candidate counts — the
-        # stage's real cost; the iteration math is 0.13), and the XLA
-        # loop re-reads the gradient planes from HBM every iteration.
-        # The kernel copies the frame to VMEM once and does
-        # everything there (ops/pallas_subpix.refine_corners_fused)
-        from aruco_slam_tpu.ops import pallas_subpix
-        return pallas_subpix.refine_corners_fused(
-            img, corners, tuple(sched),
-            interpret=(pallas_mode == "interpret"))
 
     patches, cx0, cy0 = _gather_patches(img, corners, rad)
     # starting offset of the true corner estimate from the patch
@@ -479,7 +426,7 @@ def _homography_cells(corners: jnp.ndarray, cells: int) -> jnp.ndarray:
     entries (ops/pnp._h_square_entries) composed with the constant
     affine cell-grid -> canonical-square map — ~40 batched scalar ops
     per candidate instead of the 8x8 DLT normal solve the first cut
-    vmapped here (96 tiny serialized solves, 0.1 ms/frame). The quad
+    vmapped here (96 tiny serialized solves). The quad
     targets are centered/scaled to ~unit size first (same Hartley
     conditioning the DLT needed: the entries mix products of
     coordinates, and pixel-scale magnitudes cost f32 bits).
@@ -506,7 +453,11 @@ def _homography_cells(corners: jnp.ndarray, cells: int) -> jnp.ndarray:
     a = jnp.asarray([[1.0, 0.0, -g / 2.0],
                      [0.0, -1.0, g / 2.0],
                      [0.0, 0.0, 1.0]], corners.dtype)
-    return t @ h_norm @ a
+    # true f32: at default precision a GPU runs f32 matmuls in TF32
+    # (~1e-3 relative), i.e. up to a pixel of error on 1080p sample
+    # positions; these 3x3 products cost nothing at full precision
+    mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+    return mm(mm(t, h_norm), a)
 
 
 
@@ -521,16 +472,15 @@ def _sample_cells(img: jnp.ndarray, quads: jnp.ndarray, cells: int
     sample against the marker's own (min+max)/2, and the center of a
     payload cell is >= a cell-radius away from any edge, so the
     sub-pixel interpolation bilinear adds is noise-averaging at best —
-    while costing 4 scattered image gathers per point instead of 1
-    (measured 0.32 ms/frame of the robust detector's 2.84: the whole
-    decode stage was gather-bound)."""
+    while costing 4 scattered image gathers per point instead of 1."""
     k = quads.shape[0]
     hmat = _homography_cells(quads, cells)         # (K, 3, 3)
     ci = (jnp.arange(cells, dtype=jnp.float32) + 0.5)
     gx, gy = jnp.meshgrid(ci, ci)                  # (cells, cells)
     ones = jnp.ones_like(gx)
     grid = jnp.stack([gx, gy, ones], -1).reshape(-1, 3)  # (cells², 3)
-    proj = jnp.einsum("kab,nb->kna", hmat, grid)
+    proj = jnp.einsum("kab,nb->kna", hmat, grid,
+                      precision=jax.lax.Precision.HIGHEST)  # see above
     px = proj[..., 0] / proj[..., 2]
     py = proj[..., 1] / proj[..., 2]
     h, w = img.shape
@@ -600,7 +550,6 @@ def _detect_candidates(image: jnp.ndarray, cfg: DetectorConfig,
     # small window keeps apart — on cluttered scenes a marker adjacent
     # to a dark shape survives the small window / fine downscale but
     # fuses into a non-quad blob in the union.
-    pallas_mode = _pallas_mode(cfg)
     if cfg.passes:
         passes = cfg.passes
     else:  # auto sweep honoring the thresh_win/downscale knobs
@@ -620,9 +569,8 @@ def _detect_candidates(image: jnp.ndarray, cfg: DetectorConfig,
     # pools finest-first: a coarser grid is an exact (f, f) pool of a
     # finer one (floor-division nests), so only the FINEST downscale
     # ever reads the 2-MP image — the ds=4 pools derive from the ds=2
-    # pools at 1/4 the input size. reduce_window keeps the natural
-    # (8, 128) tiling (the reshape-to-(hl, ds, wl, ds) form relayouts
-    # the image: measured 0.79 vs 0.29 ms/frame for this stage).
+    # pools at 1/4 the input size. reduce_window reads the image in its
+    # own layout (a reshape-to-(hl, ds, wl, ds) form would relayout it).
     for ds in sorted({d for _, d in passes}):
         hl, wl = h // ds, w // ds
         src = next((d2 for d2 in sorted(pools, reverse=True)
@@ -659,11 +607,6 @@ def _detect_candidates(image: jnp.ndarray, cfg: DetectorConfig,
         mean = means[win_l]
         fg = (small_min < (mean - cfg.thresh_c)) \
             & (small_avg < (mean - 0.5 * cfg.thresh_c))
-        # VMEM gate for the fused stencil+scan kernel: its live set is
-        # ~6 label-sized int32 buffers, so 540x960 (the ds=2 fine pass
-        # at 1080p, 2.1 MB/buffer) fits the 16 MB scoped budget with
-        # room; 4K-class fine passes (>650k px) fall back to XLA
-        pm = pallas_mode if bg_label <= 650_000 else "off"
         # Fine-downscale passes run at 4x the coarse pixel count and
         # dominate the 3-pass sweep's cost, so they get HALF the
         # stencil budget. Only prop_iters is halved: convergence on
@@ -683,8 +626,7 @@ def _detect_candidates(image: jnp.ndarray, cfg: DetectorConfig,
         fine_iters = max(16, cfg.prop_iters // 2)
         labels = _connected_components(
             fg, fine_iters if fine else cfg.prop_iters,
-            scan_rounds=fine_rounds if fine else cfg.scan_rounds,
-            pallas_mode=pm)
+            scan_rounds=fine_rounds if fine else cfg.scan_rounds)
 
         # Fine-downscale passes exist to SEPARATE components the
         # coarse min-pool bridges; once labeled, everything downstream
@@ -692,8 +634,7 @@ def _detect_candidates(image: jnp.ndarray, cfg: DetectorConfig,
         # SUBSAMPLED back to the coarsest grid — label equality
         # survives strided subsampling, the sort shrinks 4x, the
         # (K, h, w) mask stack shrinks 4x, and the subpixel refinement
-        # absorbs the coarser quad seed. Measured: the ds=2 pass costs
-        # 4.7 ms/frame at 1080p full-grid vs ~1.2 subsampled.
+        # absorbs the coarser quad seed.
         sub = base_ds // ds
         labs = labels[::sub, ::sub] if sub > 1 else labels
         per_pass.append((labs, bg_label, ds))
@@ -716,9 +657,8 @@ def _detect_candidates(image: jnp.ndarray, cfg: DetectorConfig,
     #
     # Sort-based area histogram: sort the labels, find run starts, get
     # each run's length from the distance to the next start (reverse
-    # cummin — no gathers). The obvious scatter-add histogram
-    # (zeros.at[labels].add(1)) costs ~1.2 ms/frame at 1080p on TPU —
-    # 4x the price of the sort.
+    # cummin — no gathers) instead of a scatter-add histogram
+    # (zeros.at[labels].add(1)).
     labs_stack = jnp.stack([p[0] for p in per_pass])  # (P, hl, wl)
     bgs = jnp.asarray([p[1] for p in per_pass], jnp.int32)
 
@@ -736,7 +676,6 @@ def _detect_candidates(image: jnp.ndarray, cfg: DetectorConfig,
         # and nothing downstream depends on it — the capped slice
         # keeps whole runs (cnt <= cap by the area gate), extremes are
         # order-free, and every tie-break packs positions explicitly
-        # (measured ~8% cheaper than the stable sort on TPU)
         s_lab, s_pos = jax.lax.sort((labs.reshape(-1), idx),
                                     num_keys=1, is_stable=False)
         start = jnp.concatenate(
@@ -750,7 +689,7 @@ def _detect_candidates(image: jnp.ndarray, cfg: DetectorConfig,
             (s_lab < bg_label) & (cnt >= cfg.min_area)
             & (cnt <= max_area), cnt, 0)
         # Two-level top-K: a full-length top_k is a second O(n log n)
-        # sort (~0.4 ms/frame at 1080p). Qualifying run-starts are
+        # sort. Qualifying run-starts are
         # >= min_area slots apart in the sorted array (the earlier
         # qualifying run occupies that many slots), so a block-max
         # with block <= min_area can never merge two qualifying
@@ -786,12 +725,10 @@ def _detect_candidates(image: jnp.ndarray, cfg: DetectorConfig,
         # compact per-candidate pixel lists: component j's pixels are
         # s_pos[starts_j : starts_j + cnt_j] (one contiguous slice) —
         # cap at max_area (the area gate's own bound). The slices run
-        # as LANE-ALIGNED 2D row slabs of a (rows, 128) view — start
-        # row st//128, the st%128 offset handled by the validity mask
-        # — which halves the gather cost vs 1D dynamic slices at
-        # arbitrary offsets (measured 0.27 vs 0.51 ms/frame: XLA
-        # fetches whole lane tiles either way, but the unaligned form
-        # adds an align-shift per slice)
+        # as ALIGNED 2D row slabs of a (rows, 128) view — start row
+        # st//128, the st%128 offset handled by the validity mask —
+        # so every slice starts on a 128-element boundary instead of
+        # an arbitrary offset
         cap = min(max_area, n)
         rows = cap // 128 + 2
         tot_rows = -(-n // 128) + rows
@@ -855,8 +792,7 @@ def _detect_candidates(image: jnp.ndarray, cfg: DetectorConfig,
     flat_c = quads_full.reshape(-1, 2)
     refined = _subpix_refine(
         image, flat_c,
-        ((cfg.subpix_win, cfg.subpix_iters), (3, 4)),
-        pallas_mode=pallas_mode).reshape(k, 4, 2)
+        ((cfg.subpix_win, cfg.subpix_iters), (3, 4))).reshape(k, 4, 2)
     if stop == "subpix":
         return refined, top_score, cand_ok
     if stop == "homog":
@@ -904,10 +840,10 @@ def detect_markers(image: jnp.ndarray, cfg: DetectorConfig
 
     # 7. dedup into slot outputs (largest candidate wins per id),
     # fully data-parallel: per slot, argmax candidate score over the
-    # (K, C) id-match matrix. The sequential K-step .at[].set loop this
-    # replaces cost ~0.45 ms/frame on TPU (K tiny dynamic-update-slice
-    # kernels); this is one (K, C) reduction. Ties break to the LOWER
-    # candidate index (earlier pass), like the loop did.
+    # (K, C) id-match matrix: one (K, C) reduction instead of a
+    # sequential K-step .at[].set loop of tiny dynamic-update-slices.
+    # Ties break to the LOWER candidate index (earlier pass), like the
+    # loop did.
     ok = decoded & (cand_ids >= 0) & (cand_ids < cfg.capacity)
     match = ok[:, None] & (cand_ids[:, None]
                            == jnp.arange(cfg.capacity)[None, :])
@@ -954,8 +890,7 @@ def assign_slots(table_ids: jnp.ndarray, canon: jnp.ndarray,
     k = canon.shape[0]
     # Fully data-parallel form of the (conceptually sequential)
     # candidate loop — (K, K)/(K, C) masks instead of K tiny
-    # dynamic-update-slice kernels (the loop cost ~0.45 ms/frame on
-    # TPU). Semantics preserved exactly:
+    # dynamic-update-slice kernels. Semantics preserved exactly:
     #  * one WINNER per id: highest score, ties to the lower candidate
     #    index (the loop's strict-greater replacement rule),
     #  * unseen ids claim free slots in FIRST-OCCURRENCE order (the
@@ -1192,8 +1127,7 @@ def track_markers(image: jnp.ndarray, corners: jnp.ndarray,
     re-validation (-1 = free); None = slot index IS the id
     (`detect_markers` layout). Returns the same (corners, mask)
     shapes for this frame. Cost is ~candidate-free: three patch
-    gathers + decode (~0.3 ms/frame at 1080p vs ~6 ms for the robust
-    full sweep).
+    gathers + decode, a small fraction of the robust full sweep.
     """
     d = dict_mod.load(cfg.dict_name)
     c = corners.shape[0]
@@ -1230,8 +1164,6 @@ def _track_core(image, corners, mask, velocity, cfg: DetectorConfig,
     h, w = img.shape
     c = corners.shape[0]
 
-    pm = _pallas_mode(cfg)
-
     # Iterated median-consensus refinement. A single wide-window pull
     # per corner is not reliable: corners whose motion approaches the
     # window can stall at the drift clip or lock onto the WRONG
@@ -1246,16 +1178,14 @@ def _track_core(image, corners, mask, velocity, cfg: DetectorConfig,
     # change at video rate is ~a pixel, absorbed by the tight stages.
     def consensus(seed, schedule):
         pulled = _subpix_refine(
-            image, seed.reshape(-1, 2), schedule,
-            pallas_mode=pm).reshape(c, 4, 2)
+            image, seed.reshape(-1, 2), schedule).reshape(c, 4, 2)
         return seed + jnp.median(pulled - seed, axis=1, keepdims=True)
 
     quad = consensus(corners + velocity,
                      ((cfg.track_win, cfg.subpix_iters),))
     quad = consensus(quad, ((6, 4),))
     refined = _subpix_refine(
-        image, quad.reshape(-1, 2), ((3, 4), (2, 2)),
-        pallas_mode=pm).reshape(c, 4, 2)
+        image, quad.reshape(-1, 2), ((3, 4), (2, 2))).reshape(c, 4, 2)
     # The polish can hop to a payload-cell attractor a few px off
     # (whose capture basin starts ~1.5 px out — and which can still
     # survive decode, compounding frame over frame). The consensus

@@ -11,7 +11,7 @@ scripts/bake_dictionaries.py (every cv2 predefined dictionary:
 
 `match_table` precomputes all 4 rotations of every code as ±1
 vectors, so payload matching in the detector is ONE matmul
-(candidates × codes·rotations) that lands on the MXU, instead of
+(candidates × codes·rotations), instead of
 OpenCV's per-candidate hash lookups.
 """
 

@@ -1,12 +1,13 @@
-"""Small-matrix linear algebra, fully unrolled for TPU batching.
+"""Small-matrix linear algebra, fully unrolled for batching.
 
 XLA lowers `jnp.linalg.solve` / `cho_factor` on small batched systems
-to LAPACK-style routines that serialize poorly on TPU — profiling the
-PnP pipeline showed 32k batched 6x6/8x8 solves costing ~1 second
-(ops/pnp.py Gauss-Newton). These helpers unroll Cholesky factorization
-and triangular substitution over a *static* dimension, so a batch of N
-solves becomes a handful of fused elementwise VPU ops (a few hundred
-scalar multiplies per solve), with no per-matrix control flow.
+to LAPACK-style library routines that handle many tiny matrices
+poorly (the PnP Gauss-Newton loop, ops/pnp.py, solves tens of
+thousands of 6x6/8x8 systems per batch). These helpers unroll Cholesky
+factorization and triangular substitution over a *static* dimension,
+so a batch of N solves becomes a handful of fused elementwise ops (a
+few hundred scalar multiplies per solve), with no per-matrix control
+flow.
 
 All functions broadcast over arbitrary leading batch dims.
 """
@@ -64,9 +65,9 @@ def solve_spd_entries(a: list[list[jnp.ndarray]],
     """Cholesky solve on *scalar entries*: a[i][j] (j ≤ i filled) and
     b[i] are batched scalars; returns x as a list of scalars. The
     structure-of-arrays form — no (..., n, n) tensor is ever
-    materialized, so vmapped callers never pay the TPU's (8, 128) tile
-    padding on tiny trailing dims (42–57x HBM expansion observed in
-    the PnP Gauss-Newton loop at serving batch sizes)."""
+    materialized, so vmapped callers never pay tile padding on tiny
+    trailing dims (the PnP Gauss-Newton loop at serving batch
+    sizes)."""
     n = len(b)
     l: list[list[jnp.ndarray]] = [[None] * n for _ in range(n)]
     for i in range(n):

@@ -1,13 +1,13 @@
 """Batched planar PnP: homography + IPPE-square + Gauss-Newton refine.
 
-TPU-native replacement for the reference's per-marker host loop around
+Batched-accelerator replacement for the reference's per-marker host loop around
 ``cv2.solvePnP(..., flags=SOLVEPNP_IPPE_SQUARE)`` (reference
 filters/base_filter.py:125-171). The whole pipeline — closed-form
 square homography, 2x2 spectral decomposition, 3x3 translation solve
 and a fixed-iteration 6x6 Gauss-Newton polish — is written in
 structure-of-arrays *scalar* form so M markers across B frames solve
 as ONE fused elementwise XLA program with no data-dependent shapes and
-no small trailing tensor dims (which the TPU tiler pads 42–57x).
+no small trailing tensor dims (which tiled layouts pad to full tiles).
 
 Method: "Infinitesimal Plane-based Pose Estimation" (IPPE), Collins &
 Bartoli 2014 — the same algorithm OpenCV's IPPE_SQUARE implements.
@@ -71,7 +71,7 @@ def homography_4pt(obj_xy: jnp.ndarray, img_xy: jnp.ndarray) -> jnp.ndarray:
     a = jnp.concatenate([rows_u, rows_v], axis=0)      # (8, 8)
     b = jnp.concatenate([u, v], axis=0)                # (8,)
     # normal-equation solve with an unrolled 8x8 Cholesky: batches of
-    # tiny LU solves serialize badly on TPU (see ops/linalg.py)
+    # tiny library solves serialize badly (see ops/linalg.py)
     h = small.solve_normal(a, b)
     return jnp.concatenate([h, jnp.ones(1, h.dtype)]).reshape(3, 3)
 
@@ -87,7 +87,7 @@ def _h_square_entries(s, u, v):
     projective unit-square interpolation (Heckbert '89) composed with
     the affine unit↔square map. Exact 4-point homography — replaces
     the DLT 8x8 normal solve with ~40 batched-scalar ops and no
-    (…, 8, 8) tensors (TPU tile padding, see _gn_refine_entries)."""
+    (…, 8, 8) tensors (tile padding, see _gn_refine_entries)."""
     sx = u[0] - u[1] + u[2] - u[3]
     sy = v[0] - v[1] + v[2] - v[3]
     dx1 = u[1] - u[2]
@@ -220,10 +220,9 @@ def _gn_refine_entries(rr, tt, ox, oy, uo, vo, iters: int,
     Written in structure-of-arrays scalar form: the 4 corners, the 21
     JᵀJ entries, the 6x6 Cholesky, and the 3x3 rotation update are all
     unrolled into batched-scalar arithmetic with NO small trailing
-    tensor dims. Stacked (4,2,3)/(3,3) intermediates here get tiled to
-    (8,128) on TPU — a 42–57x HBM padding blowup at serving batch
-    sizes (observed OOM at 256 streams) — whereas scalars fuse into a
-    single elementwise VPU kernel inside the loop.
+    tensor dims. Stacked (4,2,3)/(3,3) intermediates pad out to whole
+    layout tiles at serving batch sizes, whereas scalars fuse into a
+    single elementwise kernel inside the loop.
     """
     dt = tt[0].dtype
 

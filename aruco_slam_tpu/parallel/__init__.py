@@ -3,8 +3,9 @@ multi-sequence SLAM.
 
 The reference has zero parallelism of any kind (SURVEY.md §2:
 single-process, single-threaded, no threads/MPI/NCCL). This layer is
-designed from scratch for TPU SPMD: `jax.sharding.Mesh` +
-`shard_map`, with XLA collectives (psum) riding ICI.
+designed from scratch for SPMD: `jax.sharding.Mesh` + `shard_map`,
+with XLA collectives (psum) over the device interconnect (NVLink/NCCL
+between GPUs, Gloo between CPU processes).
 
 * `sharded_ba` — distributed bundle adjustment: measurement-factor
   linearization sharded over the mesh, partial normal-equation terms

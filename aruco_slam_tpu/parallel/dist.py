@@ -2,25 +2,25 @@
 
 The reference is strictly single-process (reference main/run_slam.py:111
 — a sequential frame loop; no multiprocessing/threads/MPI anywhere), so
-this subsystem is designed from scratch for the TPU fleet shape:
+this subsystem is designed from scratch for the multi-device shape:
 
-* one Python process per host, `jax.distributed.initialize` wiring the
-  processes into one JAX runtime whose `jax.devices()` spans every chip
-  in the slice/cluster,
+* one Python process per host, driving every GPU of that host;
+  `jax.distributed.initialize` wires the processes into one JAX
+  runtime whose `jax.devices()` spans every device in the cluster,
 * SPMD programs written once against a global `Mesh`; XLA compiles the
-  collectives onto ICI within a slice and DCN across slices — no
-  NCCL/MPI calls in user code,
+  collectives onto NCCL (NVLink within a host, the network across
+  hosts) on GPUs and onto Gloo on the CPU backend — no NCCL/MPI calls
+  in user code,
 * a 2-D mesh ``('data', 'kf')``: independent SLAM sequences (map
   survey fleets, multi-camera rigs) are data-parallel over ``data``;
   within each sequence the bundle-adjustment landmark/factor blocks
   shard over ``kf`` (parallel/sharded_ba.py). Lay the ``kf`` axis
-  innermost so its per-iteration psums ride ICI, with only the
-  embarrassingly-parallel ``data`` axis crossing DCN.
+  innermost so its per-iteration psums stay within a host, with only
+  the embarrassingly-parallel ``data`` axis crossing hosts.
 
-On TPU pods the four initialize() arguments come from the environment
-automatically (jax.distributed reads the TPU metadata); on CPU/GPU
-clusters — and in the multi-process CPU test (tests/test_dist.py) —
-they are passed explicitly or via the standard env vars.
+The initialize() arguments are passed explicitly or via the
+``SLAM_*`` env vars (nothing is autodetected); the multi-process CPU
+test (tests/test_dist.py) exercises the same path over Gloo.
 """
 
 from __future__ import annotations
@@ -40,8 +40,7 @@ def initialize(coordinator_address: str | None = None,
 
     Call once per process before any other JAX use. No-ops when the
     runtime is already initialized (so drivers can call it
-    unconditionally). On TPU all arguments are discovered from the
-    environment; elsewhere they fall back to the env vars
+    unconditionally). Missing arguments fall back to the env vars
     ``SLAM_COORDINATOR`` / ``SLAM_NUM_PROCESSES`` / ``SLAM_PROCESS_ID``.
 
     ``local_devices``: on the CPU backend, how many virtual devices
@@ -64,20 +63,36 @@ def initialize(coordinator_address: str | None = None,
     if process_id is None and "SLAM_PROCESS_ID" in os.environ:
         process_id = int(os.environ["SLAM_PROCESS_ID"])
     if coordinator_address is None and num_processes is None:
-        # single-host TPU/CPU autodetection path: initialize() with no
-        # args is only valid on supported multi-host platforms; a
-        # plain single-process run needs no distributed runtime
+        # a plain single-process run needs no distributed runtime
         return
-    try:
-        # cross-process collectives on the CPU backend need a
-        # transport; Gloo is the in-tree one (TPU uses ICI/DCN and
-        # ignores this knob)
-        jax.config.update("jax_cpu_collectives_implementation", "gloo")
-    except Exception:  # knob absent in some versions — fine on TPU
-        pass
+    # cross-process collectives on the CPU backend need a transport;
+    # Gloo is the in-tree one (GPUs use NCCL and ignore this knob)
+    jax.config.update("jax_cpu_collectives_implementation", "gloo")
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes, process_id=process_id)
+
+
+def one_card_env(process_id: int, env: dict) -> dict:
+    """Narrow a worker's environment to exactly one GPU.
+
+    For a one-machine launch of several processes: a JAX process
+    reserves most of the memory of every card it can see, so workers
+    that each saw every card would fail. ``CUDA_VISIBLE_DEVICES`` (the
+    caller's list if set, else cards 0, 1, ...) is narrowed to its
+    ``process_id``-th entry; CPU-backend workers ignore it. Returns
+    ``env``, updated in place."""
+    visible = env.get("CUDA_VISIBLE_DEVICES")
+    if visible:
+        cards = visible.split(",")
+        if process_id >= len(cards):
+            raise ValueError(
+                f"process {process_id} has no card of its own: "
+                f"CUDA_VISIBLE_DEVICES={visible!r}")
+        env["CUDA_VISIBLE_DEVICES"] = cards[process_id]
+    else:
+        env["CUDA_VISIBLE_DEVICES"] = str(process_id)
+    return env
 
 
 def make_mesh2d(n_data: int | None = None, n_kf: int | None = None,
@@ -86,9 +101,8 @@ def make_mesh2d(n_data: int | None = None, n_kf: int | None = None,
 
     ``kf`` is the fast-moving (innermost) axis so the BA psums stay on
     the chips with the tightest interconnect; ``data`` strides across
-    hosts/slices. Sizes default to: ``kf`` = all devices of one
-    process (so a ``kf`` group never crosses a host on CPU clusters,
-    and never crosses a slice on multi-slice TPU), ``data`` = the rest.
+    hosts. Sizes default to: ``kf`` = all devices of one process (so a
+    ``kf`` group never crosses a host), ``data`` = the rest.
     """
     devices = jax.devices() if devices is None else devices
     n = len(devices)

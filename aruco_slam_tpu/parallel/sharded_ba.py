@@ -1,7 +1,7 @@
 """Distributed Schur-complement bundle adjustment.
 
 SPMD decomposition (the north star's "partition keyframes and
-landmark/map blocks ... all-reduce/reduce-scatter over ICI"), built on
+landmark/map blocks ... all-reduce/reduce-scatter"), built on
 one structural fact of marker SLAM: **every measurement factor touches
 exactly one landmark**. Partitioning the factors BY LANDMARK SHARD
 therefore makes the whole landmark side of the normal equations
@@ -313,10 +313,10 @@ def sharded_fleet_optimize(cfg: GraphConfig, states: GraphState,
     `stack_graphs`), one entry per sequence/survey; the fleet axis
     shards over `data_axis` (zero cross-problem traffic) and each
     problem's landmarks/factors shard over `kf_axis` (the psums of
-    `_lm_iterations` ride only that inner axis — lay it on ICI,
-    `parallel/dist.make_mesh2d`). Returns (fleet states with
-    replicated, host-readable pose/landmark estimates, per-problem
-    final costs).
+    `_lm_iterations` ride only that inner axis — lay it on the
+    devices of one host, `parallel/dist.make_mesh2d`). Returns (fleet
+    states with replicated, host-readable pose/landmark estimates,
+    per-problem final costs).
     """
     n_data = mesh.shape[data_axis]
     n_kf = mesh.shape[kf_axis]

@@ -2,12 +2,12 @@
 
 The reference renders through OpenCV windows and a Pangolin/OpenGL
 binding built from source (reference viewers/viewer_2d.py,
-viewers/viewer_3d.py, thirdparty/pangolin_setup.py). Per the TPU-first
-design these are pure host-side sinks fed by device→host pose/map
+viewers/viewer_3d.py, thirdparty/pangolin_setup.py). Per the
+device-first design these are pure host-side sinks fed by device→host pose/map
 snapshots: the 2D overlay rasterizes in numpy (no native windowing
 dependency), the 3D view renders with matplotlib (headless export) or
 the fast numpy rasterizer (viz/render3d — the live follow-camera
-window, ~1-2 ms/frame), and both export PNG frames / MP4 (imageio).
+window), and both export PNG frames / MP4 (imageio).
 Interactive windows (`--display`) go through cv2 when a display
 server exists; everything degrades to headless export without one.
 """

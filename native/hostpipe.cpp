@@ -1,8 +1,8 @@
-// hostpipe: native host-side frame runtime for the TPU SLAM engine.
+// hostpipe: native host-side frame runtime for the on-device SLAM engine.
 //
 // The reference leans on OpenCV C++ for its host frame path
 // (cv2.cvtColor/resize per frame in the driver loop,
-// reference main/run_slam.py:116). The TPU engine's host duties are
+// reference main/run_slam.py:116). The engine's host duties are
 // (a) pixel-format conversion + resize feeding device batches and
 // (b) keeping the device fed: a threaded producer/consumer frame ring
 // so video decode overlaps device compute (the host<->device

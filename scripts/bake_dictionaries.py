@@ -7,7 +7,7 @@ filters/base_filter.py:82, calibration/charuco_calibration.py:12).
 This tool extracts the same tables once with cv2 (a test-only
 dependency) and stores them as plain (N, n, n) uint8 arrays, so the
 runtime detector needs no OpenCV — ops/dictionary.py loads the .npy
-and builds the ±1 MXU match table from it.
+and builds the ±1 match table from it.
 
     python scripts/bake_dictionaries.py [--check]
 

@@ -112,8 +112,8 @@ def test_run_offline_end_to_end(seq_file, tmp_path):
 def test_checkpoint_resume_matches_uninterrupted(seq_file, tmp_path,
                                                  filt):
     """A killed-and-resumed run must produce the same trajectory as an
-    uninterrupted checkpointing run, bitwise (SURVEY.md §5 'TPU build:
-    real checkpointing'; the reference has no mid-run persistence)."""
+    uninterrupted checkpointing run, bitwise (SURVEY.md §5: real
+    checkpointing; the reference has no mid-run persistence)."""
     from aruco_slam_tpu.apps import run_slam
     ckpt = tmp_path / "ck.npz"
     t_full, t_res = tmp_path / "full.txt", tmp_path / "res.txt"

@@ -129,7 +129,7 @@ def test_noiseless_convergence_rotations():
 
 
 def test_float32_stability():
-    """The TPU dtype: covariance must stay PSD-ish and finite."""
+    """The device dtype: covariance must stay PSD-ish and finite."""
     cfg = MekfConfig(capacity=16, dtype=jnp.float32,
                      r_uncertainty=1e-3, q_uncertainty_cam=0.05,
                      q_error_uncertainty_cam=0.05, q_uncertainty_lm=1e-5)
@@ -157,23 +157,6 @@ def test_scan_matches_step_loop():
         np.asarray(by_scan.cam_t), np.asarray(s.cam_t), atol=1e-12)
     np.testing.assert_allclose(
         np.asarray(by_scan.cov), np.asarray(s.cov), atol=1e-12)
-
-
-def test_pallas_fused_update_matches_cholesky():
-    """Fused Newton–Schulz update kernel (interpret on CPU) tracks the
-    Cholesky path to f32 roundoff over a full sequence."""
-    base = MekfConfig(capacity=16)
-    _, traj, seq = make_obs_seq(base, frames=60, markers=6,
-                                noise_t=0.005, noise_r=0.005)
-    out = {}
-    for pu in (False, True):
-        cfg = base._replace(pallas_update=pu)
-        final, cam_traj = mekf_scan(cfg, init_state(cfg), seq)
-        out[pu] = (np.asarray(cam_traj), np.asarray(final.cov))
-    np.testing.assert_allclose(out[True][0], out[False][0],
-                               atol=5e-4, rtol=1e-3)
-    np.testing.assert_allclose(out[True][1], out[False][1],
-                               atol=5e-3, rtol=5e-3)
 
 
 def test_rotation_consistency_gate():
@@ -287,7 +270,7 @@ def test_velocity_motion_model_runs_and_stays_consistent():
 def test_ns_solver_matches_cholesky():
     """XLA Newton–Schulz innovation solve (the batched-serving path)
     tracks the Cholesky solve."""
-    base = MekfConfig(capacity=16, pallas_update=False)
+    base = MekfConfig(capacity=16)
     _, traj, seq = make_obs_seq(base, frames=40, markers=6,
                                 noise_t=0.005)
     outs = {}
@@ -296,6 +279,26 @@ def test_ns_solver_matches_cholesky():
         _, cam_traj = mekf_scan(cfg, init_state(cfg), seq)
         outs[sv] = np.asarray(cam_traj)
     np.testing.assert_allclose(outs["ns"], outs["cho"], atol=1e-4)
+
+
+def test_ns_solver_matches_cholesky_rotations_cv():
+    """The serving configuration's solver ("ns") against the exact
+    Cholesky over a whole sequence in the largest per-landmark block
+    (rotation landmarks: 6 error dims, 7-dim measurements) under the
+    constant-velocity model: trajectories, landmarks and covariances
+    agree to f32 solve noise."""
+    base = MekfConfig(capacity=16, with_rotations=True,
+                      motion_model="cv")
+    _, traj, seq = make_obs_seq(base, frames=80, markers=6,
+                                noise_t=0.005, noise_r=0.005)
+    outs = {}
+    for sv in ("cho", "ns"):
+        cfg = base._replace(s_solver=sv)
+        final, cam_traj = mekf_scan(cfg, init_state(cfg), seq)
+        outs[sv] = (np.asarray(cam_traj), np.asarray(final.lm),
+                    np.asarray(final.cov))
+    for got, ref in zip(outs["ns"], outs["cho"]):
+        np.testing.assert_allclose(got, ref, atol=1e-4)
 
 
 def test_cv_motion_model_beats_static_predict():
@@ -559,7 +562,7 @@ def test_bf16_covariance_storage_mode():
     little extra process noise — bounded ATE, no blow-up."""
     import jax.numpy as jnp
 
-    cfg32 = MekfConfig(capacity=64, pallas_update=False, s_solver="ns",
+    cfg32 = MekfConfig(capacity=64, s_solver="ns",
                        motion_model="cv")
     cfg16 = cfg32._replace(cov_dtype=jnp.bfloat16)
     _, traj, seq = make_obs_seq(cfg32, noise_t=0.005)
